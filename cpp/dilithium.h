@@ -4,8 +4,8 @@
 // models only the NTT engine; the full scheme there exists only in RTL
 // (`rtl_src/combined_top.v`). This oracle implements the complete scheme
 // in portable C++ from the round-3 specification semantics so the JAX
-// library can be differentially tested host-side (SURVEY.md §2.6 "TPU
-// equivalents": a C++ reference implementation for host-side verification).
+// library can be differentially tested host-side (SURVEY.md §2.6: a C++
+// reference implementation for host-side verification).
 //
 // Conventions match the KAT corpus: tr = 32 bytes (`combined_top.v:980`),
 // mu = CRH(tr || M) = 64 bytes, deterministic signing (rhoprime from K).

@@ -17,9 +17,9 @@
 //
 // This is a behavioral model, not a cycle model: the reference's staggered
 // FIFO/PIPO pipeline (`fifo.h`) exists to meet BRAM timing and has no
-// observable effect on values or layouts, so it is not modeled. On the TPU
-// side none of this file is used by the compute path (the whole transform
-// sits in VMEM, see ops/ntt.py); it exists so the reference's differential
+// observable effect on values or layouts, so it is not modeled. The JAX
+// compute path uses none of this file (see ops/ntt.py); it exists so the
+// reference's differential
 // test strategy (SURVEY.md §4.3) can be replayed against this codebase.
 #pragma once
 

@@ -1,9 +1,9 @@
-"""dilithium_tpu — a TPU-native CRYSTALS-Dilithium (round-3, v3.1) library.
+"""dilithium_tpu — a CRYSTALS-Dilithium (round-3, v3.1) library for NVIDIA GPUs.
 
 Re-implements the capabilities of the GMUCERG/Dilithium FPGA design
 (reference: /root/reference, `combined_top.v`) as an idiomatic JAX/Pallas
 framework: batched int32 NTT kernels, lane-parallel Keccak-f[1600], masked
-rejection sampling, and `shard_map` data parallelism over TPU meshes —
+rejection sampling, and `shard_map` data parallelism over device meshes —
 keygen / sign / verify at security levels 2, 3 and 5, bit-exact against the
 reference's KAT vectors (KAT/*.txt, 100 vectors per level).
 

@@ -29,7 +29,7 @@ def _write(path: str, data: bytes) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="dilithium_tpu",
-        description="CRYSTALS-Dilithium (round 3) keygen/sign/verify on TPU/CPU.",
+        description="CRYSTALS-Dilithium (round 3) keygen/sign/verify on GPU/CPU.",
     )
     ap.add_argument("--level", type=int, default=3, choices=(2, 3, 5),
                     help="security level (default 3)")
@@ -58,6 +58,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from dilithium_tpu import api  # late: jax import is slow
+    from dilithium_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     if args.cmd == "keygen":
         if args.seed:

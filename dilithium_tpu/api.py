@@ -2,7 +2,7 @@
 
 The reference exposes one streaming top (`combined_top.v:26-42`): mode
 (0=keygen, 1=verify, 2=sign) + sec_lvl (2/3/5) selected at runtime, keys
-and signatures streamed as bytes. This module is that surface for the TPU
+and signatures streamed as bytes. This module is that surface for the
 library: NumPy bytes in, NumPy bytes out, arbitrary-length messages (the
 mu = CRH(tr || M) digest is computed host-side with hashlib — messages
 are ragged and hashing them is not device work; fixed 64-byte mu batches
@@ -82,7 +82,7 @@ def compute_mu_many(trs, messages: Sequence[Bytes]) -> np.ndarray:
             # Only expected-unavailability errors reach the fallback (no
             # toolchain / failed build / stale .so missing the symbol);
             # genuine crh_batch failures must propagate, not be silently
-            # papered over by hashlib (ADVICE r4). Warn once per process.
+            # papered over by hashlib. Warn once per process.
             global _CRH_FALLBACK_WARNED
             if not _CRH_FALLBACK_WARNED:
                 _CRH_FALLBACK_WARNED = True
@@ -160,6 +160,27 @@ def _expansion_meta(kind: str, level: int, key_bytes: bytes) -> dict:
         "level": level,
         "key_sha256": hashlib.sha256(key_bytes).hexdigest(),
     }
+
+
+def resolve_mode(mode: str, platform: Optional[str] = None) -> str:
+    """The service path `Signer` / `Verifier` use for `mode`.
+
+    "auto" resolves by the platform of JAX's default device (or
+    `platform`): "gpu" gets "mxu" (int8 operators + elastic stream
+    scheduler), "cpu" gets "batch" (the NTT pipeline, cheap to compile).
+    Any other platform raises: it has no measured default.
+    """
+    if mode == "auto":
+        platform = platform or jax.devices()[0].platform
+        if platform == "gpu":
+            return "mxu"
+        if platform == "cpu":
+            return "batch"
+        raise ValueError(f"no default service mode for platform {platform!r}; "
+                         "pass mode='mxu' or mode='batch'")
+    if mode not in ("mxu", "batch"):
+        raise ValueError(f"unknown mode {mode!r}")
+    return mode
 
 
 def keygen(level: int, seeds: Sequence[Bytes]) -> Tuple[list, list]:
@@ -242,18 +263,19 @@ class Signer:
     """Persistent signing service for one key — caches the expanded key.
 
     The FPGA re-streams the full sk and re-expands Â on every sign call
-    (`tb_sign_top.v:171-283`); a memory-rich TPU keeps the NTT-domain
-    expansions resident (SURVEY.md §5 checkpoint/resume: "persisted
-    expanded keys (Â cache) as an optimization toggle").
+    (`tb_sign_top.v:171-283`); here the per-key expansion stays resident
+    in device memory (SURVEY.md §5 checkpoint/resume: "persisted expanded
+    keys (Â cache) as an optimization toggle").
 
     mode:
-      "mxu"    — dense per-key int8 operators on the systolic array +
-                 elastic stream scheduler (`mxu.sign_stream_mxu`): fastest
-                 (~180k Dilithium-3 signs/sec on v5e-1 at batch 16k), but
-                 each distinct batch length compiles its own stream graph.
-      "batch"  — lockstep `scheme.sign_expanded`: portable and
-                 compile-cheap; right for CPU and small/ragged batches.
-      "auto"   — "mxu" on TPU, "batch" otherwise.
+      "mxu"    — dense per-key int8 operators on the tensor cores +
+                 elastic stream scheduler (`mxu.sign_stream_mxu`): the
+                 serving path, but each distinct batch length compiles
+                 its own stream graph.
+      "batch"  — lockstep `scheme.sign_expanded`: compile-cheap; right for
+                 the CPU and small/ragged batches.
+      "auto"   — by platform (`resolve_mode`): "mxu" on a GPU, "batch" on
+                 the CPU; any other platform raises.
 
     cache_path: optional .npz path persisting the per-key expansion across
     processes (the checkpoint/resume analog, SURVEY.md §5). On a valid hit
@@ -270,10 +292,7 @@ class Signer:
             raise ValueError(f"sk has {len(sk_b)} bytes, expected {self.p.sk_bytes}")
         self.sk = jnp.asarray(np.frombuffer(sk_b, dtype=np.uint8))
         self.tr = sk_b[2 * SEEDBYTES: 2 * SEEDBYTES + TRBYTES]
-        if mode == "auto":
-            mode = "mxu" if jax.default_backend() == "tpu" else "batch"
-        if mode not in ("mxu", "batch"):
-            raise ValueError(f"unknown Signer mode {mode!r}")
+        mode = resolve_mode(mode)
         self.mode = mode
         self.window = window
         if mode == "mxu":
@@ -331,7 +350,8 @@ class MultiSigner:
     routes a mixed-key message queue through `scheme.sign_stream_keys`,
     whose attempt slots gather their own key's material by row — no
     lockstep max-of-batch rejection waste, one compiled graph for any key
-    mix (~2.5x the lockstep many-keys rate at batch 16k, docs/PERF.md).
+    mix. It runs the NTT pipeline on every platform: the int8 operators
+    are per key (~5.9 MB at level 3), so `mode` does not apply here.
     The reference analog is `combined_top.v` accepting a freshly streamed
     key every sign invocation (`tb_sign_top.v:171-283`).
     """
@@ -383,11 +403,11 @@ class Verifier:
     is computed once and every `verify()` call reuses it.
 
     mode:
-      "mxu"    — dense z->Az / c->c.t1 int8 operators on the systolic
-                 array (`mxu.verify_mxu`).
-      "batch"  — NTT-pipeline `scheme.verify_expanded`: portable and
-                 compile-cheap.
-      "auto"   — "mxu" on TPU, "batch" otherwise.
+      "mxu"    — dense z->Az / c->c.t1 int8 operators on the tensor cores
+                 (`mxu.verify_mxu`).
+      "batch"  — NTT-pipeline `scheme.verify_expanded`: compile-cheap.
+      "auto"   — by platform (`resolve_mode`): "mxu" on a GPU, "batch" on
+                 the CPU; any other platform raises.
 
     cache_path: optional .npz persisting the expansion (see `Signer`).
     """
@@ -401,10 +421,7 @@ class Verifier:
             raise ValueError(f"pk has {len(pk_b)} bytes, expected {self.p.pk_bytes}")
         self.pk = jnp.asarray(np.frombuffer(pk_b, dtype=np.uint8))
         self.tr = hashlib.shake_256(pk_b).digest(TRBYTES)
-        if mode == "auto":
-            mode = "mxu" if jax.default_backend() == "tpu" else "batch"
-        if mode not in ("mxu", "batch"):
-            raise ValueError(f"unknown Verifier mode {mode!r}")
+        mode = resolve_mode(mode)
         self.mode = mode
         if mode == "mxu":
             from dilithium_tpu import mxu as _mxu

@@ -1,21 +1,24 @@
-"""Batched Keccak-f[1600] and SHAKE128/256 XOFs in pure jnp.
+"""Batched Keccak-f[1600] and SHAKE128/256 / SHA3 XOFs.
 
-TPU-native replacement for the reference's VHDL Keccak core
+Data-parallel replacement for the reference's VHDL Keccak core
 (`rtl_src/keccak_top.vhd`, `keccak_round.vhd`, `keccak_fsm2.vhd:46-78` —
-1 round/cycle, 24 cycles per permutation, shared by 3 instances). Here the
-permutation is data-parallel: the batch dimension provides what the FPGA
-got from pipelining, and all five scheme hash uses (seed expansion, tr, mu,
-ExpandA/S/Mask streams, SampleInBall — see SURVEY.md §2.3 header-word list)
-funnel through these functions.
+1 round/cycle, 24 cycles per permutation, shared by 3 instances): the
+batch dimension provides what the FPGA got from pipelining, and all five
+scheme hash uses (seed expansion, tr, mu, ExpandA/S/Mask streams,
+SampleInBall — see SURVEY.md §2.3 header-word list) funnel through
+`shake` / `shake_words`.
 
-Layout: 64-bit lanes are uint32 (lo, hi) pairs (the TPU VPU is a 32-bit
-machine), held as a structure-of-arrays — 50 separate uint32 arrays whose
-shape IS the batch, folded to [B/128, 128] so every VPU op runs on full
-(8, 128) vector registers. The AoS alternative ([..., 25, 2] with the lane
-index minor) puts the 2-element axis on the 128-lane dimension and runs at
-~8% VPU utilization — measured 93 ns/state vs ~8 ns/state for this layout.
-The permutation is fully unrolled: one XLA fusion, state resident in
-vector registers across all 24 rounds, no HBM round-trips.
+Layout: 64-bit lanes are uint32 (lo, hi) pairs held as a
+structure-of-arrays — 50 uint32 planes whose shape is the flattened batch.
+
+Implementations (`impl()`), chosen once per process outside any trace:
+  "kernel" — the Pallas/Triton GPU kernel (`keccak_triton`): the state
+             stays in registers through absorb and squeeze. GPU default.
+  "loop"   — plain jnp, the 24 rounds as a `fori_loop`. CPU default and
+             the reference of the CPU tests.
+`use_impl` overrides the choice for code traced inside it. (A third form,
+the 24 rounds unrolled for XLA to fuse, compiled for minutes per XOF call
+on the H100 and ran 9x slower than the kernel; it was removed, PERF.md.)
 
 All shapes are static; variable-length absorb is handled by the caller
 padding to a fixed byte length (pad10*1 indices are computed at trace
@@ -25,8 +28,9 @@ time), the device analog of the reference's header-word protocol
 
 from __future__ import annotations
 
-import os
-from typing import List, Sequence, Tuple
+import contextlib
+import math
+from typing import Iterator, List, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -36,17 +40,33 @@ from dilithium_tpu.params import SHAKE128_RATE, SHAKE256_RATE
 
 _U32 = jnp.uint32
 
-# Permutation backend for the shake hot path: "pallas" (Mosaic kernel,
-# TPU only), "jnp" (XLA fusion, any backend), or "auto" (pallas on TPU).
-_IMPL = os.environ.get("DILITHIUM_KECCAK_IMPL", "auto")
+IMPLS = ("kernel", "loop")
+_override: List[str] = []
 
 
-def _use_pallas() -> bool:
-    if _IMPL == "pallas":
-        return True
-    if _IMPL == "jnp":
-        return False
-    return jax.default_backend() == "tpu"
+def impl() -> str:
+    """The XOF implementation code traced now will use (see module doc)."""
+    if _override:
+        return _override[-1]
+    return "kernel" if jax.default_backend() == "gpu" else "loop"
+
+
+@contextlib.contextmanager
+def use_impl(name: str) -> Iterator[None]:
+    """Trace the XOFs with implementation `name` inside this block.
+
+    The choice is read while tracing, so call a fresh `jax.jit` (or
+    `.lower()`) inside the block; an executable already compiled keeps
+    the implementation it was traced with.
+    """
+    if name not in IMPLS:
+        raise ValueError(f"unknown Keccak implementation {name!r}; one of {IMPLS}")
+    _override.append(name)
+    try:
+        yield
+    finally:
+        _override.pop()
+
 
 # Keccak round constants, split into (lo32, hi32)
 _RC64 = [
@@ -59,10 +79,8 @@ _RC64 = [
     0x000000000000800A, 0x800000008000000A, 0x8000000080008081,
     0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
 ]
-_RC_LO = [np.uint32(c & 0xFFFFFFFF) for c in _RC64]
-_RC_HI = [np.uint32(c >> 32) for c in _RC64]
-_RC_LO_ARR = np.array(_RC_LO, dtype=np.uint32)
-_RC_HI_ARR = np.array(_RC_HI, dtype=np.uint32)
+_RC_LO_ARR = np.array([c & 0xFFFFFFFF for c in _RC64], dtype=np.uint32)
+_RC_HI_ARR = np.array([c >> 32 for c in _RC64], dtype=np.uint32)
 
 # rho rotation offsets, indexed [x][y] (lane (x, y), x = column)
 _RHO = [
@@ -94,11 +112,9 @@ def _round_soa(lo: List, hi: List, rc_lo, rc_hi) -> Tuple[List, List]:
 
     rho/pi and chi are interleaved per OUTPUT ROW: each chi output row is
     computed as soon as its five rho-rotated inputs are formed, instead of
-    materializing the full 50-plane B state first. The smaller live set
-    helps the register allocator in both the XLA-fused and Mosaic-kernel
-    uses — measured 8% faster on the fused XOF Pallas kernel (v5e-1,
-    B=16384, 5-block SHAKE256: 17.0-18.0 vs 18.9-19.6 ns/state/perm,
-    interleaved A/B 2026-08-20; `tools/keccak_exp.py`).
+    materializing the full 50-plane B state first, which keeps the live
+    set small for the register allocator (shared by the jnp paths and the
+    GPU kernel, `keccak_triton`).
     """
     # theta
     c_lo = [lo[x] ^ lo[x + 5] ^ lo[x + 10] ^ lo[x + 15] ^ lo[x + 20] for x in range(5)]
@@ -136,25 +152,10 @@ def _round_soa(lo: List, hi: List, rc_lo, rc_hi) -> Tuple[List, List]:
 
 
 def _f1600_soa(lo: List[jnp.ndarray], hi: List[jnp.ndarray]) -> Tuple[List, List]:
-    """Keccak-f[1600] on a structure-of-arrays state.
+    """Keccak-f[1600] on a structure-of-arrays state, in plain jnp.
 
     lo/hi: 25 uint32 arrays each (lane k = x + 5*y, FIPS-202 order), any
-    common shape. Fully unrolled — 24 rounds of pure elementwise ops that
-    XLA fuses into one kernel.
-    """
-    lo = list(lo)
-    hi = list(hi)
-    for rnd in range(24):
-        lo, hi = _round_soa(lo, hi, _RC_LO[rnd], _RC_HI[rnd])
-    return lo, hi
-
-
-def _f1600_soa_loop(lo: List[jnp.ndarray], hi: List[jnp.ndarray]) -> Tuple[List, List]:
-    """Same permutation as `_f1600_soa`, as a fori_loop over a stacked carry.
-
-    24x smaller traced graph — used on CPU, where XLA compile time of the
-    fully-unrolled form dominates test latency and runtime fusion quality
-    does not matter.
+    common shape. The 24 rounds run as a fori_loop over a stacked carry.
     """
     rc_lo = jnp.asarray(_RC_LO_ARR)
     rc_hi = jnp.asarray(_RC_HI_ARR)
@@ -181,136 +182,74 @@ def keccak_f1600(state: jnp.ndarray) -> jnp.ndarray:
     """
     lo = [state[..., k, 0] for k in range(25)]
     hi = [state[..., k, 1] for k in range(25)]
-    f = _f1600_soa_loop if jax.default_backend() == "cpu" else _f1600_soa
-    lo, hi = f(lo, hi)
+    lo, hi = _f1600_soa(lo, hi)
     return jnp.stack(
         [jnp.stack([lo[k], hi[k]], axis=-1) for k in range(25)], axis=-2
     )
 
 
-def _fold_batch(data: jnp.ndarray) -> Tuple[jnp.ndarray, Tuple[int, ...], int]:
-    """[..., n] -> [ceil(B/128), 128, n]: batch on (sublane, lane) axes.
+def _pad_words(data: jnp.ndarray, rate: int, domain: int) -> jnp.ndarray:
+    """uint8 [..., msg_len] -> uint32 [b, nblocks_in * rate/4] absorb words.
 
-    Every per-lane slice of the folded array is a 2-D [B/128, 128] tile —
-    full (8, 128) VPU register utilization (a flat [B] slice would occupy
-    one sublane). Pads the batch; caller unfolds with `_unfold_batch`.
+    The batch is flattened to b rows. pad10*1 with the domain byte (0x1F
+    SHAKE, 0x06 SHA3) is applied, and the padded bytes are read as
+    little-endian uint32 words in one bitcast: word 2k / 2k+1 of block i is
+    the low / high half of rate lane k.
     """
-    batch_shape = data.shape[:-1]
-    n = data.shape[-1]
-    b = int(np.prod(batch_shape)) if batch_shape else 1
-    flat = data.reshape((b, n))
-    pad = (-b) % 128
-    if pad:
-        flat = jnp.concatenate(
-            [flat, jnp.zeros((pad, n), dtype=data.dtype)], axis=0
-        )
-    return flat.reshape(((b + pad) // 128, 128, n)), batch_shape, b
-
-
-def _unfold_batch(folded: jnp.ndarray, batch_shape: Tuple[int, ...], b: int) -> jnp.ndarray:
-    n = folded.shape[-1]
-    return folded.reshape((-1, n))[:b].reshape(batch_shape + (n,))
-
-
-def _block_lanes(block: jnp.ndarray) -> Tuple[List[jnp.ndarray], List[jnp.ndarray]]:
-    """uint8 [..., 8*w] -> (lo, hi): w pairs of uint32 [...] LE lanes."""
-    w = block.shape[-1] // 8
-    by = block.astype(_U32)
-    lo, hi = [], []
-    for k in range(w):
-        o = 8 * k
-        lo.append(
-            by[..., o] | (by[..., o + 1] << 8) | (by[..., o + 2] << 16)
-            | (by[..., o + 3] << 24)
-        )
-        hi.append(
-            by[..., o + 4] | (by[..., o + 5] << 8) | (by[..., o + 6] << 16)
-            | (by[..., o + 7] << 24)
-        )
-    return lo, hi
-
-
-def _lanes_bytes(lo: Sequence[jnp.ndarray], hi: Sequence[jnp.ndarray]) -> jnp.ndarray:
-    """w uint32 lane pairs [...] -> uint8 [..., 8*w] little-endian."""
-    parts = []
-    for l, h in zip(lo, hi):
-        for word in (l, h):
-            parts.extend(
-                ((word >> jnp.uint32(8 * i)) & jnp.uint32(0xFF)).astype(jnp.uint8)
-                for i in range(4)
-            )
-    return jnp.stack(parts, axis=-1)
-
-
-def _absorb(data: jnp.ndarray, rate: int, domain: int = 0x1F):
-    """Fold the batch, pad10*1, absorb all blocks. Returns the state as
-    (lo, hi) plane lists plus the unfold metadata and the permute fn."""
     msg_len = data.shape[-1]
     nblocks_in = msg_len // rate + 1  # pad10*1 always appends at least 1 byte
     padded_len = nblocks_in * rate
+    b = math.prod(data.shape[:-1])
+    pad = np.zeros(padded_len - msg_len, dtype=np.uint8)
+    pad[0] = domain
+    pad[-1] |= 0x80
+    padded = jnp.concatenate(
+        [data.reshape(b, msg_len).astype(jnp.uint8),
+         jnp.broadcast_to(jnp.asarray(pad), (b, pad.size))],
+        axis=-1,
+    )
+    return jax.lax.bitcast_convert_type(
+        padded.reshape(b, padded_len // 4, 4), _U32
+    )
 
-    folded, batch_shape, b = _fold_batch(data.astype(jnp.uint8))
 
-    # pad10*1: domain byte 0x1F (SHAKE) or 0x06 (SHA3 fixed-output modes)
-    pad = jnp.zeros(folded.shape[:-1] + (padded_len - msg_len,), dtype=jnp.uint8)
-    pad = pad.at[..., 0].set(domain)
-    pad = pad.at[..., -1].set(pad[..., -1] | 0x80)
-    padded = jnp.concatenate([folded, pad], axis=-1)
-
-    if _use_pallas():
-        from dilithium_tpu.ops import keccak_pallas
-        permute = keccak_pallas.f1600_lists
-    elif jax.default_backend() == "cpu":
-        permute = _f1600_soa_loop  # compile-time-friendly
-    else:
-        permute = _f1600_soa
-
+def _sponge_jnp(words: jnp.ndarray, out_words: int, rate: int) -> jnp.ndarray:
+    """Plain-jnp sponge: absorb words [b, n_in] -> squeeze words [b, out_words]."""
     rate_w = rate // 8
-    zeros = jnp.zeros(folded.shape[:-1], dtype=_U32)
+    zeros = jnp.zeros(words.shape[:1], dtype=_U32)
     lo = [zeros] * 25
     hi = [zeros] * 25
-    for i in range(nblocks_in):
-        blk_lo, blk_hi = _block_lanes(padded[..., i * rate: (i + 1) * rate])
+    for i in range(words.shape[-1] // (2 * rate_w)):
+        base = 2 * rate_w * i
         for k in range(rate_w):
-            lo[k] = lo[k] ^ blk_lo[k]
-            hi[k] = hi[k] ^ blk_hi[k]
-        lo, hi = permute(lo, hi)
-    return lo, hi, permute, batch_shape, b
+            lo[k] = lo[k] ^ words[:, base + 2 * k]
+            hi[k] = hi[k] ^ words[:, base + 2 * k + 1]
+        lo, hi = _f1600_soa(lo, hi)
+    out: List[jnp.ndarray] = []
+    while True:
+        for k in range(rate_w):
+            out.extend((lo[k], hi[k]))
+        if len(out) >= out_words:
+            return jnp.stack(out[:out_words], axis=-1)
+        lo, hi = _f1600_soa(lo, hi)
 
 
-def _shake_words_fused(
-    data: jnp.ndarray, out_words: int, rate: int, domain: int = 0x1F
-) -> jnp.ndarray:
-    """Fused-kernel SHAKE: one pallas_call for absorb + all squeezes.
+def _shake_words_kernel(data: jnp.ndarray, out_words: int, rate: int,
+                        domain: int = 0x1F, interpret: bool = False) -> jnp.ndarray:
+    """`shake_words` through the GPU kernel (`keccak_triton.shake_words`)."""
+    from dilithium_tpu.ops import keccak_triton
 
-    Same contract as `shake_words`. The per-block plane packing (bytes ->
-    lane words, pad10*1) stays in XLA — cheap elementwise prologue that
-    fuses with the caller — while every Keccak permutation runs inside a
-    single Mosaic kernel with the state resident in registers/VMEM.
-    """
-    from dilithium_tpu.ops import keccak_pallas
+    words = _pad_words(data, rate, domain)
+    out = keccak_triton.shake_words(words.T, out_words, rate // 8,
+                                    interpret=interpret)
+    return out.T.reshape(data.shape[:-1] + (out_words,))
 
-    msg_len = data.shape[-1]
-    nblocks_in = msg_len // rate + 1
-    padded_len = nblocks_in * rate
 
-    folded, batch_shape, b = _fold_batch(data.astype(jnp.uint8))
-    pad = jnp.zeros(folded.shape[:-1] + (padded_len - msg_len,), dtype=jnp.uint8)
-    pad = pad.at[..., 0].set(domain)
-    pad = pad.at[..., -1].set(pad[..., -1] | 0x80)
-    padded = jnp.concatenate([folded, pad], axis=-1)
-
-    rate_w = rate // 8
-    # bytes -> little-endian u32 lane words in ONE bitcast (the byte-slice
-    # packing of `_block_lanes` costs ~270 strided minor-axis u8 slices —
-    # measured 10x the kernel itself). Word 2k / 2k+1 of block b land at
-    # plane b*2*rate_w + 2k (+1): exactly the kernel's absorb layout.
-    w32 = jax.lax.bitcast_convert_type(
-        padded.reshape(padded.shape[:-1] + (padded_len // 4, 4)), jnp.uint32
-    )  # [SB, 128, padded_len/4]
-    stack = jnp.moveaxis(w32, -1, 0)  # [nblocks_in * 2*rate_w, SB, 128]
-    out = keccak_pallas.shake_words_folded(stack, out_words, rate_w)
-    return _unfold_batch(jnp.moveaxis(out, 0, -1), batch_shape, b)
+def _shake_words(data: jnp.ndarray, out_words: int, rate: int, domain: int) -> jnp.ndarray:
+    if impl() == "kernel":
+        return _shake_words_kernel(data, out_words, rate, domain)
+    out = _sponge_jnp(_pad_words(data, rate, domain), out_words, rate)
+    return out.reshape(data.shape[:-1] + (out_words,))
 
 
 def shake(data: jnp.ndarray, out_bytes: int, rate: int, domain: int = 0x1F) -> jnp.ndarray:
@@ -320,23 +259,10 @@ def shake(data: jnp.ndarray, out_bytes: int, rate: int, domain: int = 0x1F) -> j
     rate: 168 for SHAKE128, 136 for SHAKE256 (domain 0x1F); the SHA3
     fixed-output modes use domain 0x06 (see `sha3_256` / `sha3_512`).
     """
-    if _use_pallas():
-        out_words = -(-out_bytes // 4)
-        words = _shake_words_fused(data, out_words, rate, domain)
-        by = (
-            words[..., None] >> (jnp.arange(4, dtype=_U32) * 8)
-        ).astype(jnp.uint8)
-        return by.reshape(words.shape[:-1] + (out_words * 4,))[..., :out_bytes]
-    lo, hi, permute, batch_shape, b = _absorb(data, rate, domain)
-    rate_w = rate // 8
-    nblocks_out = -(-out_bytes // rate)
-    outs = []
-    for i in range(nblocks_out):
-        outs.append(_lanes_bytes(lo[:rate_w], hi[:rate_w]))
-        if i + 1 < nblocks_out:
-            lo, hi = permute(lo, hi)
-    out = jnp.concatenate(outs, axis=-1) if len(outs) > 1 else outs[0]
-    return _unfold_batch(out[..., :out_bytes], batch_shape, b)
+    out_words = -(-out_bytes // 4)
+    words = _shake_words(data, out_words, rate, domain)
+    by = jax.lax.bitcast_convert_type(words, jnp.uint8)  # [..., out_words, 4]
+    return by.reshape(words.shape[:-1] + (out_words * 4,))[..., :out_bytes]
 
 
 def shake_words(data: jnp.ndarray, out_words: int, rate: int) -> jnp.ndarray:
@@ -345,24 +271,9 @@ def shake_words(data: jnp.ndarray, out_words: int, rate: int) -> jnp.ndarray:
     data: uint8 [..., msg_len]; returns uint32 [..., out_words] where word
     j holds output-stream bytes 4j..4j+3 little-endian (i.e. the uint32 LE
     view of the byte stream `shake` would produce). The samplers bit-slice
-    coefficients straight from these words (`pack.unpack_bits_w`), which
-    skips the 8-arrays-per-lane byte explosion of `_lanes_bytes` — the
-    dominant cost of the byte API for long squeezes.
+    coefficients straight from these words (`pack.unpack_bits_w`).
     """
-    if _use_pallas():
-        return _shake_words_fused(data, out_words, rate)
-    lo, hi, permute, batch_shape, b = _absorb(data, rate)
-    rate_w = rate // 8
-    nblocks_out = -(-(out_words * 4) // rate)
-    words: List[jnp.ndarray] = []
-    for i in range(nblocks_out):
-        for k in range(rate_w):
-            words.append(lo[k])
-            words.append(hi[k])
-        if i + 1 < nblocks_out:
-            lo, hi = permute(lo, hi)
-    out = jnp.stack(words[:out_words], axis=-1)
-    return _unfold_batch(out, batch_shape, b)
+    return _shake_words(data, out_words, rate, 0x1F)
 
 
 # Fixed-output SHA3 rates: rate = 200 - 2*digest_len (FIPS-202 §5.1).

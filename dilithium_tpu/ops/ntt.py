@@ -1,13 +1,12 @@
 """Batched 256-point NTT over Z_q (q = 8380417) in roll/select form.
 
-TPU-native replacement for the reference's polynomial compute engine
+Batched replacement for the reference's polynomial compute engine
 (`rtl_src/operation_module.v`, `address_unit.v`, `butterfly2x2.v`,
 `twiddle_resolver.v`, `ntt_fifo*.v` — the 2x2 BRAM-streamed dataflow,
-≈290 cycles/poly at 4 coeff/cycle). On TPU the whole transform lives in
-vector registers: each of the 8 stages is ONE full-width butterfly pass
-expressed as roll + select + Montgomery multiply over the last axis, so a
-`[B, 256]` batch runs all B transforms in lockstep on the VPU with no
-cross-lane gathers. The FPGA's in-place address permutations
+≈290 cycles/poly at 4 coeff/cycle). Each of the 8 stages is ONE
+full-width butterfly pass expressed as roll + select + Montgomery
+multiply over the last axis, so a `[B, 256]` batch runs all B transforms
+in lockstep as elementwise ops that XLA fuses, with no gathers. The FPGA's in-place address permutations
 (`address_resolver.v:38-53`) are unnecessary — XLA owns layout.
 
 Zeta tables are the standard Dilithium twiddles (r = 1753, bit-reversed
@@ -18,30 +17,13 @@ up to reduction convention), stored premultiplied by R = 2^32 so that
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from dilithium_tpu.params import Q, N, MONT_R
 from dilithium_tpu.ops.reduce import mont_mul, add_mod, sub_mod
 
 _ROOT = 1753  # primitive 512th root of unity mod q
-
-# Transform backend: "pallas" (transposed-layout Mosaic kernel, TPU only),
-# "jnp" (roll/select passes, any backend), or "auto" (pallas on TPU —
-# measured ~1.6x faster at large batch). pointwise/matvec stay jnp: they
-# are single fused elementwise ops either way.
-_IMPL = os.environ.get("DILITHIUM_NTT_IMPL", "auto")
-
-
-def _use_pallas() -> bool:
-    if _IMPL == "pallas":
-        return True
-    if _IMPL == "jnp":
-        return False
-    return jax.default_backend() == "tpu"
 
 
 def _bitrev8(x: int) -> int:
@@ -106,9 +88,6 @@ def ntt(x: jnp.ndarray) -> jnp.ndarray:
     Output ordering/semantics match the standard Dilithium reference ntt()
     (bit-reversed-zeta CT; cf. `dilithium-256/reference_code/ref_ntt.cpp`).
     """
-    if _use_pallas():
-        from dilithium_tpu.ops import ntt_pallas
-        return ntt_pallas.ntt(x)
     fwd = jnp.asarray(_FWD_ZETAS)
     for s, length in enumerate(_FWD_LENGTHS):
         is_a = jnp.asarray(_ISA_FWD[s])
@@ -130,9 +109,6 @@ def invntt(x: jnp.ndarray, from_product: bool = True) -> jnp.ndarray:
     the final scaling, like the reference folds 1/256 into per-stage div2
     (`ref_ntt2x2.cpp:91`, `butterfly.v:214-222`).
     """
-    if _use_pallas():
-        from dilithium_tpu.ops import ntt_pallas
-        return ntt_pallas.invntt(x, from_product=from_product)
     inv = jnp.asarray(_INV_ZETAS)
     for s, length in enumerate(_INV_LENGTHS):
         is_a = jnp.asarray(_ISA_INV[s])

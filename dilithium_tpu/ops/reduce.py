@@ -1,9 +1,9 @@
 """Vectorized mod-q arithmetic over uint32 lanes (q = 8380417).
 
-TPU-native replacement for the reference's 3-stage pipelined Barrett
-multiplier (`rtl_src/Barrett_8380417.v:189-220`). The TPU VPU has native
-32-bit integer multiply (low half only), so we build an exact 32x32->hi32
-out of 16-bit limbs with a carry chain, then do Montgomery reduction with
+Elementwise replacement for the reference's 3-stage pipelined Barrett
+multiplier (`rtl_src/Barrett_8380417.v:189-220`). jnp has no 32x32->hi32
+multiply on uint32, so we build an exact one out of 16-bit limbs with a
+carry chain, then do Montgomery reduction with
 R = 2^32 — the same algebra as the widely used AVX2 software approach, but
 expressed as pure elementwise jnp ops so it fuses inside XLA/Pallas kernels.
 
@@ -91,22 +91,6 @@ def mul_mod(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 def csubq(a: jnp.ndarray) -> jnp.ndarray:
     """Conditional subtract: map [0, 2q) -> [0, q)."""
     return jnp.where(a >= np.uint32(Q), a - np.uint32(Q), a)
-
-
-def shoup_mul(a: jnp.ndarray, z, z_shoup) -> jnp.ndarray:
-    """a * z mod q for a in [0, q) and a PRECOMPUTED constant z in [0, q).
-
-    Shoup's trick: with z_shoup = floor(z * 2^32 / q), the quotient
-    estimate floor(a * z_shoup / 2^32) puts r = a*z - est*q in [0, 2q) —
-    6 hardware 32-bit multiplies (4 in mulhi + 2 low halves) vs 10 for
-    `mont_mul`, which matters because the VPU emulates int32 multiply.
-    Used by the NTT kernels, where every zeta is a trace-time constant
-    with its companion table.
-    """
-    a = a.astype(_U32)
-    est = mulhi_u32(a, z_shoup)
-    # both products taken mod 2^32; the true remainder < 2q < 2^32
-    return csubq(a * z - est * np.uint32(Q))
 
 
 def add_mod(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:

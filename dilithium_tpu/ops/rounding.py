@@ -1,6 +1,6 @@
 """Rounding, decomposition, hints and norm checks — fused elementwise ops.
 
-TPU-native replacement for the reference's streaming rounding datapath
+Elementwise replacement for the reference's streaming rounding datapath
 (`rtl_src/coeff_decomposer.v` 5-stage pipeline, `decomp_map1.v` threshold
 trees, `uncenter_coeff.v`, `makehint.v`, `usehint.v`, `norm_check.v`).
 Everything here is branch-free int32 arithmetic over whole `[..., 256]`

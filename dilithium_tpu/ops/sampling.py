@@ -1,10 +1,10 @@
 """ExpandA / ExpandS / ExpandMask / SampleInBall — masked batch sampling.
 
-TPU-native replacement for the reference's sampler pipeline
+Batched replacement for the reference's sampler pipeline
 (`rtl_src/gen_a_ext.v`, `sampler_a_ext.v`, `rejection_a.v`, `gen_s.v`,
 `sampler_s.v`, `rejection_s.v`, `expandmask_ext.v`, `sampler_y_ext.v`,
 `rejection_y.v`, `gen_c.v`). The RTL streams SHAKE output through 3-lane
-rejection filters, stalling until 256 coefficients are accepted; on TPU we
+rejection filters, stalling until 256 coefficients are accepted; here we
 generate a fixed, provably sufficient number of XOF blocks for the whole
 batch and compact accepted candidates with a cumulative-sum rank scatter —
 the accepted sequence is identical to streaming semantics whenever the
@@ -49,7 +49,7 @@ def debug_check_ok(ok: jnp.ndarray, what: str) -> None:
     expand_sk / expand_pk / verify / mxu.build_*_operators run expand_a
     once per key and drop its budget flag (P[miss] < 1e-17 at the default
     budgets — see `expand_a` docstring); a miss there would yield silently
-    wrong key material (ADVICE r4). With DILITHIUM_DEBUG_CHECKS=1 those
+    wrong key material. With DILITHIUM_DEBUG_CHECKS=1 those
     sites surface any miss as a host-side RuntimeError via debug.callback
     (works under jit); unset, this traces to nothing and costs zero.
     """
@@ -90,12 +90,8 @@ def _rank_compact_sparse(
     the consumed window — detected exactly via slot coverage, never
     silently wrong.
 
-    Measured (v5e-1, ExpandA shape [61440, 336] -> 256, reject rate
-    2^-13+eps, max_skips=12): 4.6 us/key vs 79.7 for the batched scatter
-    of `_rank_compact` — TPU scatters cost ~0.24 us per updated row-slot;
-    13 shifted elementwise passes are ~17x cheaper. Binary-search /
-    fixed-point GATHER formulations are 10x worse than even the scatter
-    (take_along_axis on the minor axis is pathological).
+    Thirteen shifted elementwise passes replace the batched scatter of
+    `_rank_compact` at the ExpandA shape (reject rate 2^-13+eps).
     """
     acc = accept.astype(_I32)
     rank = jnp.cumsum(acc, axis=-1) - acc
@@ -121,9 +117,8 @@ def _rank_compact_onehot(
     a [..., n_out, n_cand] broadcast compare that XLA fuses into its
     reduction without materializing. The right shape class at DENSE
     rejection rates (eta sampling, 7/16 rejects), where
-    `_rank_compact_sparse`'s skip budget forces ~400 shifted window
-    passes and goes HBM-bound: measured (v5e-1, B=16384, eta=4,
-    [B, 5..6, 816] -> 256) 152-185 ms for sparse vs ~13 ms for this form.
+    `_rank_compact_sparse`'s skip budget would force ~400 shifted window
+    passes.
     The PRODUCTION eta path now uses `_rank_compact_onehot_banded` (same
     semantics, 2.2x fewer compares); this full-window form is its exact
     differential oracle (tests/test_sampling.py) and the general-purpose
@@ -352,10 +347,8 @@ def _rank_compact(cand: jnp.ndarray, accept: jnp.ndarray, n_out: int) -> Tuple[j
     False if fewer than n_out candidates were accepted (budget exhausted).
 
     General-rate fallback; when rejections are rare use
-    `_rank_compact_sparse`. (Measured on v5e: a top_k-based compaction is
-    3x SLOWER here — k is close to n_cand, so top_k degenerates to a sort;
-    the batched 1-D scatter wins for this shape, unlike pack_hints'
-    omega-of-1536 case.)
+    `_rank_compact_sparse`. (A top_k-based compaction degenerates to a
+    sort here: k is close to n_cand.)
     """
     n_cand = cand.shape[-1]
     batch = cand.shape[:-1]
@@ -440,10 +433,7 @@ def expand_s(
     # compact-the-mapped-uint32 form.
     # Both eta rates use the packed log-shift compaction with an 8-sigma
     # truncated window (r05): displacement-walk in ~log2 passes with the
-    # nibble packed into the displacement word. Measured v5e-1,
-    # B=16384x11 (`tools/compact_exp.py`): eta=4 2.60 us/key vs 5.32 for
-    # the banded one-hot vs ~31 for the general scatter; eta=2 1.28
-    # us/key vs 3.49 for the 64-skip sparse form. ok is exact coverage;
+    # nibble packed into the displacement word. ok is exact coverage;
     # an 8-sigma truncation miss (P < 1e-14/poly) reads as a budget
     # failure, never a wrong value.
     if p.eta == 2:
@@ -491,58 +481,16 @@ def expand_mask_limbs(
 ) -> jnp.ndarray:
     """ExpandMask as CENTERED balanced base-256 int8 limbs, coeff-major.
 
-    rhoprime uint8 [W, 64], kappa uint32 [W] -> int32 [3, 256, L, W] with
+    rhoprime uint8 [W, 64], kappa uint32 [W] -> int8 [3, 256, L, W] with
     limbs[d, j, l, b] = digit d of centered y coefficient j of poly l of
     message b (y = gamma1 - r over the 18/20-bit slices, exactly
     `expand_mask`'s values re-encoded: centered(y) = d0 + 256*d1 +
     65536*d2, each digit in [-128, 127]).
 
-    This is the operand format of the MXU signer's fused-mask path: the
-    int8 y->w dots contract the (coeff, poly) axes directly, skipping the
-    batch-major unfold of the XOF word stream AND the XLA-side limb-split
-    casts (the r04 trace's two largest non-MXU items). On TPU with
-    W % 128 == 0 the whole chain (XOF absorb/squeeze, unpack, center,
-    limb split) runs in one Mosaic kernel (`keccak_pallas.mask_limbs_folded`,
-    states ordered poly-major so (sublane, lane) reshapes to (L, W)
-    without element movement); otherwise a bit-exact jnp fallback derives
-    the limbs from `expand_mask` — same values on every backend (pinned
-    by tests/test_mxu.py; the kernel itself is device-differentialed by
-    `tools/fuse_exp.py check_tpu` and the on-device KAT gate).
+    This is the operand format of the int8 signer's fused-mask path
+    (`mxu.sign_stream_mxu(fused_mask=True)`): the y->w dots contract the
+    (coeff, poly) axes directly. The limbs are derived from `expand_mask`.
     """
-    W = rhoprime.shape[0]
-    L = p.L
-    if keccak._use_pallas() and W % 128 == 0:
-        from dilithium_tpu.ops import keccak_pallas
-        # poly-major state order: state = l * W + b
-        nonces = kappa[None, :].astype(_U32) + jnp.arange(
-            L, dtype=_U32)[:, None]                      # [L, W]
-        msgs = jnp.concatenate(
-            [
-                jnp.broadcast_to(
-                    rhoprime[None], (L, W, 64)).astype(_U8),
-                _le16(nonces),
-            ],
-            axis=-1,
-        )
-        rate = SHAKE256_RATE
-        msg_len = msgs.shape[-1]
-        nblocks_in = msg_len // rate + 1
-        padded_len = nblocks_in * rate
-        folded, _, b = keccak._fold_batch(msgs)
-        pad = jnp.zeros(folded.shape[:-1] + (padded_len - msg_len,),
-                        dtype=_U8)
-        pad = pad.at[..., 0].set(0x1F)
-        pad = pad.at[..., -1].set(pad[..., -1] | 0x80)
-        padded = jnp.concatenate([folded, pad], axis=-1)
-        w32 = jax.lax.bitcast_convert_type(
-            padded.reshape(padded.shape[:-1] + (padded_len // 4, 4)), _U32
-        )
-        planes = jnp.moveaxis(w32, -1, 0)
-        out = keccak_pallas.mask_limbs_folded(
-            planes, rate // 8, p.gamma1_bits, p.gamma1
-        )  # [3*256, (L*W)/128, 128]
-        return out.reshape(3, N, L, W)
-    # fallback: identical values via the batch-major path
     from dilithium_tpu.ops.reduce import center
     y = expand_mask(rhoprime, kappa, p)           # [W, L, 256] canonical
     x = center(y)                                 # int32 centered
@@ -550,7 +498,7 @@ def expand_mask_limbs(
     x1 = (x - d0) >> 8
     d1 = ((x1 + 128) % 256) - 128
     d2 = (x1 - d1) >> 8
-    limbs = jnp.stack([d0, d1, d2])               # [3, W, L, 256]
+    limbs = jnp.stack([d0, d1, d2]).astype(jnp.int8)  # [3, W, L, 256]
     return jnp.transpose(limbs, (0, 3, 2, 1))     # [3, 256, L, W]
 
 
@@ -565,20 +513,13 @@ def sample_in_ball(
     unrolled elementwise graphs (no lax.scan): the 264-byte acceptance walk
     runs as a two-level chunked state-map composition over the tau+1
     possible fill counts, and the tau swap steps are one-hot selects over
-    the 256 axis — everything fuses into a handful of VPU kernels (a
-    264-step lax.scan costs ~19 us/step in loop overhead alone on TPU).
+    the 256 axis — everything fuses into a handful of elementwise
+    kernels instead of a 264-step sequential scan.
     Output coefficients are canonical {0, 1, q-1}.
     """
     batch = c_tilde.shape[:-1]
     tau = p.tau
     nbytes = p.ball_blocks * SHAKE256_RATE
-    if keccak._use_pallas():
-        # Fused path: SHAKE words -> single Mosaic kernel for both phases
-        # (walk + swaps register-resident; see ops/ball_pallas.py).
-        from dilithium_tpu.ops import ball_pallas
-        nb = (nbytes // 4) * 4
-        words = keccak.shake256_words(c_tilde, nb // 4)
-        return ball_pallas.sample_in_ball_words(words, tau, nb)
     stream = keccak.shake256(c_tilde, nbytes)  # [..., nbytes]
     sign_bytes = stream[..., :8].astype(_U32)
     sign_bits = (
@@ -638,9 +579,7 @@ def sample_in_ball(
 
     # Phase 2 — tau swap steps, unrolled, gather-free: all position
     # updates are one-hot selects over the 256 axis, i_t = N-tau+t is a
-    # static column per step. (Measured alternatives on v5e: per-step
-    # 1-element gathers are 2x slower; int8 storage adds repack overhead
-    # on the 32-bit VPU without winning anything.)
+    # static column per step.
     cols = jnp.arange(N, dtype=_I32)  # [256]
     sval_t = jnp.where(
         sign_bits[..., :tau] == 1, jnp.uint32(Q - 1), jnp.uint32(1)

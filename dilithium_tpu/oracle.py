@@ -30,7 +30,7 @@ def _lib() -> ctypes.CDLL:
     # but a built library exists, fall through and try it. The build is
     # serialized with an flock: `pytest -n 4` workers each call _lib() on
     # first use, and concurrent `make` runs can link over each other's
-    # half-written .so (ADVICE r4). Lock lives outside cpp/ so `make
+    # half-written .so. Lock lives outside cpp/ so `make
     # clean` can't remove it mid-hold.
     try:
         import fcntl
@@ -143,7 +143,7 @@ def crh_batch(trs: np.ndarray, messages, nthreads: int = 0) -> np.ndarray:
     # joined blob from the converted form: for a memoryview/ndarray with
     # itemsize > 1 (legal per the public Bytes type), len(m) counts
     # elements while bytes(m) yields itemsize*len(m) bytes — mixing the
-    # two would misalign every subsequent offset (ADVICE r4, medium).
+    # two would misalign every subsequent offset.
     bs = [m if type(m) is bytes else bytes(m) for m in messages]
     lens = np.fromiter(map(len, bs), dtype=np.int64, count=n)
     offsets = np.zeros(n + 1, dtype=np.int64)

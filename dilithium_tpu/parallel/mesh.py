@@ -2,8 +2,8 @@
 
 The reference is a single FPGA chip whose only interconnect is a 64-bit
 valid/ready host bus (`combined_top.v:36-41`); its parallelism is spatial
-pipelining inside the chip (SURVEY.md §2.7). The TPU-native scaling story
-is data parallelism over independent keygen/sign/verify operations: a 1-D
+pipelining inside the chip (SURVEY.md §2.7). Here the scaling story is
+data parallelism over independent keygen/sign/verify operations: a 1-D
 `jax.sharding.Mesh` over all chips, inputs sharded on the leading batch
 axis, zero cross-chip traffic in the hot path, and a single `psum` for
 throughput accounting. pk/sk either shard with the batch (distinct keys
@@ -44,8 +44,8 @@ def local_batch_to_global(mesh: Mesh, local: np.ndarray) -> jax.Array:
     """Assemble a global batch-sharded array from per-process local data.
 
     Each host contributes its local shard; the result is one logical array
-    sharded over the full mesh (the TPU-native analog of each FPGA host
-    streaming its own vectors over its own bus).
+    sharded over the full mesh (the analog of each FPGA host streaming its
+    own vectors over its own bus).
     """
     sharding = batch_sharding(mesh, ndim_extra=local.ndim - 1)
     return jax.make_array_from_process_local_data(sharding, local)

@@ -96,7 +96,7 @@ class DilithiumParams:
 
     # --- fixed XOF block budgets for masked (batch) rejection sampling ---
     # The reference streams SHAKE blocks until enough coefficients are
-    # accepted (sampler_a_ext.v / sampler_s.v). On TPU we generate a fixed,
+    # accepted (sampler_a_ext.v / sampler_s.v). Here we generate a fixed,
     # provably-sufficient number of blocks and fill by masked prefix-scan;
     # the accepted sequence is identical to streaming semantics whenever the
     # budget suffices. Failure probabilities (per poly) are astronomically

@@ -1,6 +1,6 @@
 """Batched keygen / sign / verify drivers — the scheme control layer.
 
-TPU-native replacement for the reference's `combined_top.v` (2553 lines of
+Batched replacement for the reference's `combined_top.v` (2553 lines of
 cooperating FSMs sharing 2 NTT engines, 3 Keccak cores and 7 BRAMs). Here
 each operation is one pure, jittable function over a batch: the FPGA's
 spatial pipelining (FSM1 generates candidate y while FSM2 checks the
@@ -116,7 +116,7 @@ class ExpandedKey(NamedTuple):
     """NTT-domain secret-key expansion, cacheable across sign calls.
 
     The FPGA re-expands Â and re-NTTs s1/s2/t0 on every sign invocation
-    (FSM0 LOAD/DECODE/NTT states, `combined_top.v:1535-1820`); on TPU the
+    (FSM0 LOAD/DECODE/NTT states, `combined_top.v:1535-1820`); here the
     expansion is computed once per key and reused (SURVEY.md §5).
     """
     a_hat: jnp.ndarray   # uint32 [..., K, L, 256]
@@ -344,7 +344,7 @@ def sign_stream(
     slots s with s mod n_active == i, evaluating kappa, kappa+L, ... in
     one round), so all W slots do useful work until the queue is truly
     empty and the drain tail costs ~1 round instead of ~max-of-W
-    geometrics. This is the TPU analog of the FPGA hiding attempt i+1's
+    geometrics. This is the batched analog of the FPGA hiding attempt i+1's
     y/w generation behind attempt i's check (`combined_top.v` FSM1/FSM2
     interlock) — W-wide and attempt-speculative instead of 1 deep.
 
@@ -417,7 +417,7 @@ def sign_stream_keys(
     runs of same-key slots and per-round `eks` row gathers hit coalesced
     indices. Per-message results are bit-identical either way (each
     message's kappa schedule is its own). A/B lever for the key-gather
-    tax (VERDICT r4 #5).
+    tax.
     """
     Q = mu.shape[0]
     W = min(window, Q)
@@ -469,34 +469,14 @@ def _stream_loop(attempt_fn, mu, rhoprime, p, W, max_rounds) -> SignResult:
     -> (c_tilde, z, h, accept) per slot.
 
     Committed payloads are APPENDED to a log, not scattered to queue rows:
-    TPU row scatters cost ~85 ns per updated row regardless of row size
-    (measured: the per-round z/h/c_tilde scatters were ~100 us/round of a
-    ~590 us round at W=768, 112 rounds/16k queue). Each round instead
-    compacts its committed items to the front (one-hot compare-reduce on
-    the [W] index vectors — the same shape that beat scatter in pack_hints
-    and expand_s), gathers those W payload rows once, and writes them with
+    each round compacts its committed items to the front (one-hot
+    compare-reduce on the [W] index vectors — the same shape pack_hints and
+    expand_s use), gathers those W payload rows once, and writes them with
     a single contiguous dynamic_update_slice at a running cursor — which
     XLA updates in place on the while carry. One Q-row gather after the
-    loop restores queue order.
-
-    Measured dead ends (do not retry; v5e-1, batch 16k, window 4096):
-    * Carrying only the winning kappa in the loop and re-deriving committed
-      signatures in one batched post-pass (to avoid scattering the ~9 KB
-      z/h/c_tilde payloads every round): ~12% SLOWER (40.7k vs 46.0k
-      signs/sec, stream mode) — the extra Q-wide attempt costs more than
-      the scatters save.
-    * Unconditional sorted+unique payload scatter (tgt=qidx every round,
-      garbage rows overwritten at commit) + argsort-based survivor
-      compaction: wins ~0.3 ms/round with a dummy attempt body, but is
-      ~4% slower end to end in the real MXU graph (124.9k vs 131.3k
-      signs/sec median) — writing W rows of z/h per round instead of only
-      the ~W/5 committed ones adds more HBM traffic than the cheaper
-      scatter lowering saves. (The append-log above writes W rows too, but
-      as ONE contiguous DUS instead of a per-row scatter lowering.)
-    * Scattering the payloads inside the commit cond's branches (so only
-      selected rows cross the boundary): throughput-neutral at best; the
-      h-row scatter got 2x slower inside the branch (trace: 29 -> 56
-      us/round) — reverted.
+    loop restores queue order. (The log replaced per-row scatters on the
+    previous accelerator, where row scatters were slow; whether a plain
+    scatter commit is as fast on the GPU is not measured yet.)
     """
     Q = mu.shape[0]
     BIG = jnp.int32(1 << 20)
@@ -738,7 +718,7 @@ class ExpandedPk(NamedTuple):
 
     The verify analog of `ExpandedKey`: the FPGA re-expands Â from rho on
     every verify invocation (VY_LOAD_RHO, `combined_top.v:1100-1206`); a
-    one-key TPU verify service computes it once.
+    one-key verify service computes it once.
     """
     a_hat: jnp.ndarray   # uint32 [..., K, L, 256]
     t1_hat: jnp.ndarray  # uint32 [..., K, 256] = NTT(t1 << d)

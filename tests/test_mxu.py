@@ -168,10 +168,8 @@ def test_key_operator_views_consistent(key_ctx):
 
 def test_fused_mask_attempt_bit_identical(key_ctx):
     """The fused-mask attempt path (coeff-major limb dots + y recombined
-    from limbs) must be bit-identical to the batch-major path. On CPU the
-    limbs come from the jnp fallback of `expand_mask_limbs`, which pins
-    the dataflow restructure; the Mosaic kernel itself is differentialed
-    on-device (`tools/fuse_exp.py check_tpu` + the KAT gate)."""
+    from limbs) must be bit-identical to the batch-major path, which pins
+    the dataflow restructure; chip_smoke.py checks both forms on a GPU."""
     p, kp, ek, ops = key_ctx
     B = 6
     mu = jnp.asarray(RNG.integers(0, 256, size=(B, 64), dtype=np.uint8))
@@ -192,6 +190,7 @@ def test_expand_mask_limbs_fallback_exact(key_ctx):
     limbs = np.asarray(sampling.expand_mask_limbs(rp, kap, p))  # [3,256,L,W]
     y = np.asarray(sampling.expand_mask(rp, kap, p))            # [W,L,256]
     yc = np.asarray(center(jnp.asarray(y)))
-    recon = (limbs[0] + 256 * limbs[1] + 65536 * limbs[2]).transpose(2, 1, 0)
+    l64 = limbs.astype(np.int64)
+    recon = (l64[0] + 256 * l64[1] + 65536 * l64[2]).transpose(2, 1, 0)
     np.testing.assert_array_equal(recon, yc)
     assert limbs.min() >= -128 and limbs.max() <= 127

@@ -113,7 +113,7 @@ def test_crh_batch_matches_hashlib():
 def test_crh_batch_wide_itemsize_messages():
     """Offsets must come from the CONVERTED byte length, not len(m):
     a memoryview/ndarray with itemsize > 1 has len(m) = element count but
-    bytes(m) = itemsize * len(m) bytes (ADVICE r4 medium — mixing the two
+    bytes(m) = itemsize * len(m) bytes (mixing the two
     misaligned every message after the first wide one)."""
     import hashlib
     from dilithium_tpu import oracle

@@ -166,3 +166,39 @@ def test_sharded_sign_stream_keys_matches_single_chip(mesh, data):
         attempts_per_round=2, max_rounds=64,
     )
     np.testing.assert_array_equal(np.asarray(res.sig), np.asarray(ref.sig))
+
+
+@pytest.mark.parametrize("service", [
+    "keygen", "sign", "verify", "sign_stream", "verify_stream", "sign_stream_keys",
+])
+def test_sharded_services_lower_with_gpu_kernel(mesh, service):
+    """Every sharded service traces and lowers for CUDA with the Keccak
+    kernel inside shard_map: the kernel's output must carry the varying
+    mesh axes of its input (shard_map's check_vma), which the CPU's jnp
+    path never exercises."""
+    from dilithium_tpu import mxu
+    from dilithium_tpu.ops import keccak
+    from dilithium_tpu.parallel import (
+        sharded_sign_stream, sharded_sign_stream_keys, sharded_verify_stream,
+    )
+
+    p = params.get_params(LEVEL)
+    S, u8, B = jax.ShapeDtypeStruct, jnp.uint8, 16
+    mu, sig = S((B, 64), u8), S((B, p.sig_bytes), u8)
+    with keccak.use_impl("kernel"):
+        fn, args = {
+            "keygen": lambda: (sharded_keygen(mesh, p), (S((B, 32), u8),)),
+            "sign": lambda: (sharded_sign(mesh, p), (S((B, p.sk_bytes), u8), mu)),
+            "verify": lambda: (sharded_verify(mesh, p), (S((B, p.pk_bytes), u8), sig, mu)),
+            "sign_stream": lambda: (sharded_sign_stream(mesh, p, window=2), (
+                jax.eval_shape(lambda sk: mxu.build_operators(sk, p),
+                               S((p.sk_bytes,), u8)), mu)),
+            "verify_stream": lambda: (sharded_verify_stream(mesh, p), (
+                jax.eval_shape(lambda pk: mxu.build_verify_operators(pk, p),
+                               S((p.pk_bytes,), u8)), sig, mu)),
+            "sign_stream_keys": lambda: (sharded_sign_stream_keys(mesh, p, window=2), (
+                jax.eval_shape(lambda sk: scheme.expand_sk(sk, p), S((3, p.sk_bytes), u8)),
+                S((B,), jnp.int32), mu)),
+        }[service]()
+        text = fn.trace(*args).lower(lowering_platforms=("cuda",)).as_text()
+    assert "xla.gpu.triton" in text

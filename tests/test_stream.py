@@ -114,7 +114,7 @@ def test_shared_rhoprime_rejected(ctx):
         scheme.sign_expanded(ek, mus, p, rhoprime=shared)
     with pytest.raises(ValueError, match="rhoprime"):
         scheme.sign_stream(ek, mus, p, window=3, rhoprime=shared[None, :])
-    # wrong dtype must be rejected too, not silently cast (ADVICE r3)
+    # wrong dtype must be rejected too, not silently cast
     with pytest.raises(ValueError, match="uint8"):
         scheme.sign_stream(
             ek, mus, p, window=3, rhoprime=jnp.zeros(mus.shape, dtype=jnp.int32)

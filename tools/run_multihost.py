@@ -4,14 +4,13 @@ The missing execution entry for SURVEY.md §2.7's distributed-backend row
 ("DCN for multi-host dispatch; per-host input sharding via
 `jax.make_array_from_process_local_data`"): every participating host runs
 this script; `jax.distributed.initialize` wires the JAX distributed
-runtime (ICI collectives within a slice, gloo/DCN across hosts), the 1-D
+runtime (NCCL/gloo collectives), the 1-D
 batch mesh spans ALL devices of ALL processes, each host feeds only its
 local shard of the message queue, and the global psum counters come back
 identical on every host.
 
-Usage — one invocation per host (TPU pod slices usually auto-detect all
-three distributed args from the environment, so bare
-`python tools/run_multihost.py` works there):
+Usage — one invocation per host, each told the coordinator, the process
+count and its own id:
 
   python tools/run_multihost.py \
       --coordinator=host0:8476 --num-processes=4 --process-id=$i \
@@ -41,7 +40,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--coordinator", default=None,
-                    help="coordinator address host:port (auto-detected on TPU pods)")
+                    help="coordinator address host:port")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--level", type=int, default=3, choices=(2, 3, 5))
@@ -70,8 +69,8 @@ def main(argv=None) -> int:
 
     import jax
 
-    # Wire the distributed runtime BEFORE any backend touch. On TPU pods
-    # all three args auto-detect; on CPU/GPU they must be passed.
+    # Wire the distributed runtime BEFORE any backend touch; on CPU/GPU
+    # all three args must be passed.
     init_kwargs = {}
     if args.coordinator is not None:
         init_kwargs["coordinator_address"] = args.coordinator
