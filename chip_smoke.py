@@ -13,13 +13,15 @@ Each phase prints one line with its compile seconds and its run seconds
            `scheme.verify` on 256 seeded keys against the oracle's bytes;
            verify also rejects every signature with one byte flipped
   main     level 3, one key: `mxu.build_operators`, `mxu.sign_stream_mxu`
-           over 16,384 seeded messages (window 768) with fused_mask on and
-           off, every signature equal to the oracle's; `mxu.verify_mxu`
-           and `scheme.verify` accept them all
+           over 16,384 seeded messages (window 768), every signature
+           equal to the oracle's; `mxu.verify_mxu` and `scheme.verify`
+           accept them all
   served   `api.Signer` and `api.Verifier` in auto mode (the int8 path on a
            GPU) on ragged messages, and `api.MultiSigner` over 4 keys
   keccak   the main sign with each Keccak implementation in turns, with
            compile seconds and steady signs/s
+  xof      one ExpandMask-shaped and one c~-shaped XOF call alone per
+           implementation, against hashlib, with microseconds per call
 
 `--chips 4` runs `parallel.sharded_*` on a 4-card mesh at 4x the one-card
 batch and compares every output with the same inputs run on device 0, and
@@ -176,18 +178,11 @@ def phase_main(pk: np.ndarray, sk: np.ndarray, device):
     oracle_s = time.perf_counter() - t0
 
     static = dict(p=p, window=MAIN_WINDOW, max_rounds=MAX_ROUNDS)
-    signers, rates = {}, {}
-    for fm in (True, False):
-        signers[fm], c = compile_timed(mxu.sign_stream_mxu, ops, mu, **static, fused_mask=fm)
-        res, first = run_timed(signers[fm], ops, mu)
-        check(np.asarray(res.ok).all(), f"main fused_mask={fm}: queue not signed")
-        check(np.array_equal(np.asarray(res.sig), ref),
-              f"main fused_mask={fm}: signatures != oracle")
-        rates[fm] = [c, first, []]
-    for _ in range(3):  # steady runs, in turns
-        for fm in (True, False):
-            _, t = run_timed(signers[fm], ops, mu)
-            rates[fm][2].append(t)
+    signer, sg_c = compile_timed(mxu.sign_stream_mxu, ops, mu, **static)
+    res, first = run_timed(signer, ops, mu)
+    check(np.asarray(res.ok).all(), "main: queue not signed")
+    check(np.array_equal(np.asarray(res.sig), ref), "main: signatures != oracle")
+    steady = [run_timed(signer, ops, mu)[1] for _ in range(3)]
     sig = res.sig
 
     vo, vo_c = compile_timed(mxu.build_verify_operators, jnp.asarray(pk), p=p)
@@ -200,27 +195,25 @@ def phase_main(pk: np.ndarray, sk: np.ndarray, device):
     ok, vs_r = run_timed(vs, pk_rows, sig, mu)
     check(np.asarray(ok).all(), "main: scheme.verify rejected a valid signature")
 
-    mem = signers[mxu.FUSED_MASK].memory_analysis()
+    mem = signer.memory_analysis()
     peak = (device.memory_stats() or {}).get("peak_bytes_in_use")
+    med = statistics.median(steady)
     parts = [f"phase main: level {MAIN_LEVEL}, one key, {MAIN_QUEUE} messages, "
              f"window {MAIN_WINDOW}; {MAIN_QUEUE}/{MAIN_QUEUE} signatures == oracle "
              f"(oracle {oracle_s:.1f} s on host); "
-             f"build_operators compile {bo_c:.2f} s run {bo_r:.3f} s"]
-    for fm in (True, False):
-        c, first, steady = rates[fm]
-        med = statistics.median(steady)
-        parts.append(f"sign_stream_mxu fused_mask={fm}: compile {c:.2f} s, first run "
-                     f"{first:.3f} s, steady {med:.4f} s = {MAIN_QUEUE / med:.1f} signs/s "
-                     f"(runs {', '.join(f'{t:.4f}' for t in steady)})")
-    parts.append(f"verify_mxu: build compile {vo_c:.2f} s run {vo_r:.3f} s, verify "
-                 f"compile {vm_c:.2f} s run {vm_r:.4f} s; scheme.verify compile "
-                 f"{vs_c:.2f} s run {vs_r:.4f} s; all {MAIN_QUEUE} accepted by both")
-    parts.append(f"sign step memory: argument {mem.argument_size_in_bytes} B, "
-                 f"output {mem.output_size_in_bytes} B, temp {mem.temp_size_in_bytes} B, "
-                 f"code {mem.generated_code_size_in_bytes} B; "
-                 f"peak_bytes_in_use {peak}")
+             f"build_operators compile {bo_c:.2f} s run {bo_r:.3f} s",
+             f"sign_stream_mxu: compile {sg_c:.2f} s, first run {first:.3f} s, "
+             f"steady {med:.4f} s = {MAIN_QUEUE / med:.1f} signs/s "
+             f"(runs {', '.join(f'{t:.4f}' for t in steady)})",
+             f"verify_mxu: build compile {vo_c:.2f} s run {vo_r:.3f} s, verify "
+             f"compile {vm_c:.2f} s run {vm_r:.4f} s; scheme.verify compile "
+             f"{vs_c:.2f} s run {vs_r:.4f} s; all {MAIN_QUEUE} accepted by both",
+             f"sign step memory: argument {mem.argument_size_in_bytes} B, "
+             f"output {mem.output_size_in_bytes} B, temp {mem.temp_size_in_bytes} B, "
+             f"code {mem.generated_code_size_in_bytes} B; "
+             f"peak_bytes_in_use {peak}"]
     say("; ".join(parts))
-    return ops, mu, ref, signers[mxu.FUSED_MASK]
+    return ops, mu, ref, signer
 
 
 def phase_served(pks: np.ndarray, sks: np.ndarray) -> None:
@@ -279,25 +272,17 @@ def phase_served(pks: np.ndarray, sks: np.ndarray) -> None:
 
 def phase_keccak(ops, mu, ref, default_signer, card: str) -> None:
     """The main sign with each Keccak implementation, in turns."""
-    import jax
     from dilithium_tpu import mxu, params
     from dilithium_tpu.ops import keccak
 
     p = params.get_params(MAIN_LEVEL)
-    static = dict(p=p, window=MAIN_WINDOW, max_rounds=MAX_ROUNDS, fused_mask=mxu.FUSED_MASK)
-    def fresh_signer():
-        # a new function object, so JAX traces it anew under use_impl (a
-        # second jit of sign_stream_mxu itself would reuse its trace)
-        def sign(ops, mu, p, window, max_rounds, fused_mask):
-            return mxu.sign_stream_mxu.__wrapped__(
-                ops, mu, p, window=window, max_rounds=max_rounds, fused_mask=fused_mask)
-        return jax.jit(sign, static_argnames=tuple(static))
-
+    static = dict(p=p, window=MAIN_WINDOW, max_rounds=MAX_ROUNDS)
     names = [keccak.impl()] + [n for n in keccak.IMPLS if n != keccak.impl()]
     compiled, compile_s, runs = {names[0]: default_signer}, {names[0]: None}, {}
     for name in names[1:]:
         with keccak.use_impl(name):
-            compiled[name], compile_s[name] = compile_timed(fresh_signer(), ops, mu, **static)
+            compiled[name], compile_s[name] = compile_timed(
+                mxu.sign_stream_mxu, ops, mu, **static)
     for name in names:  # warm each once and check its bytes
         res, _ = run_timed(compiled[name], ops, mu)
         check(np.array_equal(np.asarray(res.sig), ref), f"keccak {name}: signatures != oracle")
@@ -311,6 +296,48 @@ def phase_keccak(ops, mu, ref, default_signer, card: str) -> None:
         say(f"phase keccak impl={name}: compile {c}, steady {med:.4f} s = "
             f"{MAIN_QUEUE / med:.1f} signs/s (runs {', '.join(f'{t:.4f}' for t in runs[name])}), "
             f"bytes == oracle; card {card}")
+    for shape in XOF_SHAPES:
+        phase_xof(*shape, names, card)
+
+
+# (name, states, message bytes, output words, rate): the ExpandMask and
+# c~ calls of one level-3 sign round at window 768
+XOF_SHAPES = (("ExpandMask", 5 * MAIN_WINDOW, 66, 160, 136),
+              ("c_tilde", MAIN_WINDOW, 832, 8, 136))
+XOF_CALLS = 20
+
+
+def phase_xof(what, states, msg_len, out_words, rate, names, card: str) -> None:
+    """One XOF call alone per Keccak implementation, against hashlib."""
+    import hashlib
+    import jax
+    import jax.numpy as jnp
+    from dilithium_tpu.ops import keccak
+
+    msgs = np.random.default_rng(states).integers(0, 256, size=(states, msg_len), dtype=np.uint8)
+    m = jnp.asarray(msgs)
+    h = hashlib.shake_128 if rate == 168 else hashlib.shake_256
+    exp = [np.frombuffer(h(msgs[i].tobytes()).digest(4 * out_words), np.uint32)
+           for i in (0, states - 1)]
+    parts = []
+    for name in names:
+        with keccak.use_impl(name):
+            fn, c = compile_timed(jax.jit(
+                lambda x: keccak.shake_words(x, out_words, rate)), m)
+        out, _ = run_timed(fn, m)
+        check(all(np.array_equal(np.asarray(out[i]), e) for i, e in zip((0, -1), exp)),
+              f"xof {what} impl={name}: words != hashlib")
+        blocks = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(XOF_CALLS):
+                out = fn(m)
+            jax.block_until_ready(out)
+            blocks.append((time.perf_counter() - t0) / XOF_CALLS)
+        parts.append(f"impl={name} compile {c:.2f} s, {statistics.median(blocks) * 1e6:.1f} us "
+                     f"per call (blocks {', '.join(f'{t * 1e6:.1f}' for t in blocks)})")
+    say(f"phase xof {what} ({states} states x {msg_len} B -> {out_words} words): "
+        + "; ".join(parts) + f"; == hashlib; card {card}")
 
 
 # ---------------------------------------------------------------------------

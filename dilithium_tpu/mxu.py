@@ -271,51 +271,16 @@ def _apply_wy(
     )
 
 
-# ExpandMask operand form of the signer (see `_sign_attempt_mxu`). The
-# batch-major form measured faster end to end on the H100 (PERF.md).
-FUSED_MASK = False
-
-
 def _sign_attempt_mxu(ops: KeyOperators, mu, rhoprime, kappa,
-                      p: DilithiumParams, fused_mask: bool = False):
+                      p: DilithiumParams):
     """One candidate per lane using the dense operators. Mirrors
-    scheme._sign_attempt bit-for-bit (pinned by tests/test_mxu.py).
-
-    fused_mask=True routes ExpandMask through the coeff-major limb form
-    (`sampling.expand_mask_limbs`): the y->w dots contract the limb
-    planes directly and centered y is recombined from them, instead of
-    unpacking canonical y batch-major and splitting it into limbs here.
-    Bit-identical outputs either way (tests/test_mxu.py).
-    """
+    scheme._sign_attempt bit-for-bit (pinned by tests/test_mxu.py)."""
     B = mu.shape[0]
     L, K = p.L, p.K
-    if fused_mask:
-        limbs = sampling.expand_mask_limbs(rhoprime, kappa, p)  # [3,N,L,B]
-        kn3 = ops.wy_cat.shape[-1]
-        wy_r = ops.wy_cat.reshape(L, N, kn3)
-        kn = kn3 // 3
-        prods = {}
-        for i in range(3):
-            p3 = jax.lax.dot_general(
-                limbs[i], wy_r, (((0, 1), (1, 0)), ((), ())),
-                preferred_element_type=_I32,
-            )  # [B, 3*KN]
-            for j in range(3):
-                pij = p3[..., j * kn:(j + 1) * kn]
-                k = i + j
-                prods[k] = pij if k not in prods else prods[k] + pij
-        w = _recombine(
-            prods[0], prods[1], prods[2], prods[3], prods[4]
-        ).reshape(B, K, N)
-        # centered y for the z chain, recombined from the limbs (exact)
-        l32 = limbs.astype(_I32)
-        yc = l32[0] + (l32[1] << 8) + (l32[2] << 16)        # [N, L, B]
-        y_cent = jnp.transpose(yc, (2, 1, 0))               # [B, L, N]
-    else:
-        y = sampling.expand_mask(rhoprime, kappa, p)  # [B, L, 256]
-        y_cent = center(y).astype(_I32)
-        w = _apply_wy(y.reshape(B, L * N), None, p,
-                      ops.wy_cat).reshape(B, K, N)
+    y = sampling.expand_mask(rhoprime, kappa, p)  # [B, L, 256]
+    y_cent = center(y).astype(_I32)
+    w = _apply_wy(y.reshape(B, L * N), None, p,
+                  ops.wy_cat).reshape(B, K, N)
     w1, w0 = rounding.decompose(w, p)
 
     w1_packed = pack.pack_w1(w1, p).reshape(B, K * p.polyw1_packedbytes)
@@ -350,7 +315,7 @@ def _sign_attempt_mxu(ops: KeyOperators, mu, rhoprime, kappa,
     return c_tilde, z, h, accept
 
 
-@partial(jax.jit, static_argnames=("p", "window", "max_rounds", "fused_mask"))
+@partial(jax.jit, static_argnames=("p", "window", "max_rounds"))
 def sign_stream_mxu(
     ops: KeyOperators,
     mu: jnp.ndarray,
@@ -358,17 +323,12 @@ def sign_stream_mxu(
     window: int = 768,
     max_rounds: int = 8192,
     rhoprime: jnp.ndarray | None = None,
-    fused_mask: bool = FUSED_MASK,
 ) -> scheme.SignResult:
     """Elastic-scheduler stream signer over the MXU operators — same loop
     as `scheme.sign_stream` (shared `_stream_loop`), with the attempt body
     running on dense int8 matmuls instead of the NTT pipeline. Pass
     uniformly random `rhoprime` uint8 [Q, 64] for randomized signing
-    (`scheme.sign` docstring, docs/SECURITY.md).
-
-    fused_mask: route ExpandMask through the coeff-major limb form (see
-    `_sign_attempt_mxu`); the default `FUSED_MASK` is the faster form on
-    the GPU."""
+    (`scheme.sign` docstring, docs/SECURITY.md)."""
     Q_ = mu.shape[0]
     W = min(window, Q_)
 
@@ -382,8 +342,7 @@ def sign_stream_mxu(
 
     def attempt(mu_s, rp_s, kappa_s, q_s):
         del q_s  # one key: operators are slot-invariant
-        return _sign_attempt_mxu(ops, mu_s, rp_s, kappa_s, p,
-                                 fused_mask=fused_mask)
+        return _sign_attempt_mxu(ops, mu_s, rp_s, kappa_s, p)
 
     return scheme._stream_loop(attempt, mu, rhoprime, p, W, max_rounds)
 

@@ -16,7 +16,7 @@ Implementations (`impl()`), chosen once per process outside any trace:
              stays in registers through absorb and squeeze. GPU default.
   "loop"   — plain jnp, the 24 rounds as a `fori_loop`. CPU default and
              the reference of the CPU tests.
-`use_impl` overrides the choice for code traced inside it. (A third form,
+`use_impl` overrides the choice inside a block. (A third form,
 the 24 rounds unrolled for XLA to fuse, compiled for minutes per XOF call
 on the H100 and ran 9x slower than the kernel; it was removed, PERF.md.)
 
@@ -55,17 +55,21 @@ def impl() -> str:
 def use_impl(name: str) -> Iterator[None]:
     """Trace the XOFs with implementation `name` inside this block.
 
-    The choice is read while tracing, so call a fresh `jax.jit` (or
-    `.lower()`) inside the block; an executable already compiled keeps
-    the implementation it was traced with.
+    The choice is read while tracing, and jit's caches do not key on it,
+    so entering and leaving the block clears them (`jax.clear_caches`):
+    every jitted function traces anew on its next call. Compiled
+    executables the caller holds stay valid and keep the implementation
+    they were traced with.
     """
     if name not in IMPLS:
         raise ValueError(f"unknown Keccak implementation {name!r}; one of {IMPLS}")
     _override.append(name)
+    jax.clear_caches()
     try:
         yield
     finally:
         _override.pop()
+        jax.clear_caches()
 
 
 # Keccak round constants, split into (lo32, hi32)

@@ -31,8 +31,10 @@ from jax.experimental.pallas import triton as pltriton
 from dilithium_tpu.ops import keccak
 
 # States per program: one warp, one state per thread. Small blocks spread
-# the latency-bound sponge over more SMs (32 measured faster than 64-256
-# at the ExpandMask shape on the H100, PERF.md).
+# the latency-bound sponge over more SMs. The block sweep (32 fastest of
+# 32-256 at the ExpandMask shape on the H100, docs/PERF.md) was taken on
+# an earlier form of this kernel, with unrolled rate blocks and 4 warps;
+# this looped 1-warp form has not been re-swept.
 BLOCK = 32
 
 # round constants as a [2, 32] table (row 0 = low halves, row 1 = high

@@ -476,32 +476,6 @@ def expand_mask(
     return uncenter(jnp.int32(p.gamma1) - r)
 
 
-def expand_mask_limbs(
-    rhoprime: jnp.ndarray, kappa: jnp.ndarray, p: DilithiumParams
-) -> jnp.ndarray:
-    """ExpandMask as CENTERED balanced base-256 int8 limbs, coeff-major.
-
-    rhoprime uint8 [W, 64], kappa uint32 [W] -> int8 [3, 256, L, W] with
-    limbs[d, j, l, b] = digit d of centered y coefficient j of poly l of
-    message b (y = gamma1 - r over the 18/20-bit slices, exactly
-    `expand_mask`'s values re-encoded: centered(y) = d0 + 256*d1 +
-    65536*d2, each digit in [-128, 127]).
-
-    This is the operand format of the int8 signer's fused-mask path
-    (`mxu.sign_stream_mxu(fused_mask=True)`): the y->w dots contract the
-    (coeff, poly) axes directly. The limbs are derived from `expand_mask`.
-    """
-    from dilithium_tpu.ops.reduce import center
-    y = expand_mask(rhoprime, kappa, p)           # [W, L, 256] canonical
-    x = center(y)                                 # int32 centered
-    d0 = ((x + 128) % 256) - 128
-    x1 = (x - d0) >> 8
-    d1 = ((x1 + 128) % 256) - 128
-    d2 = (x1 - d1) >> 8
-    limbs = jnp.stack([d0, d1, d2]).astype(jnp.int8)  # [3, W, L, 256]
-    return jnp.transpose(limbs, (0, 3, 2, 1))     # [3, 256, L, W]
-
-
 def sample_in_ball(
     c_tilde: jnp.ndarray, p: DilithiumParams
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:

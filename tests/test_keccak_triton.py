@@ -9,6 +9,7 @@ uses.
 import hashlib
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
@@ -66,6 +67,29 @@ def test_batch_not_multiple_of_block():
         exp = np.frombuffer(hashlib.shake_128(msgs[i].tobytes()).digest(168),
                             dtype=np.uint32)
         np.testing.assert_array_equal(got[i], exp, err_msg=f"lane {i}")
+
+
+def _lowered(fn, platform):
+    m = jax.ShapeDtypeStruct((4, 32), jnp.uint8)
+    return fn.trace(m).lower(lowering_platforms=(platform,)).as_text()
+
+
+def test_use_impl_retraces_jitted_functions():
+    """A function jitted and traced before the block takes the block's
+    implementation inside it, and the choice does not outlive the block."""
+    fn = jax.jit(lambda m: keccak.shake_words(m, 8, 136))
+    assert keccak.impl() == "loop"
+    assert "triton" not in _lowered(fn, "cpu")
+    with keccak.use_impl("kernel"):
+        assert "xla.gpu.triton" in _lowered(fn, "cuda")
+    assert "triton" not in _lowered(fn, "cpu")
+
+
+def test_use_impl_rejects_unknown():
+    with pytest.raises(ValueError):
+        with keccak.use_impl("unrolled"):
+            pass
+    assert keccak.impl() == "loop"
 
 
 _GPU_CHECK = r"""
